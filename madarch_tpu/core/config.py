@@ -100,9 +100,9 @@ class ShadeConfig:
     max_march_steps: int = 300
     # Differentiable shading: re-attach hit-point gradients through the
     # implicit function theorem and compute normals as autodiff SDF
-    # gradients.  Off (the default) enables the fused geometry kernel on
-    # TPU — the reference renderer is not differentiable at all, so plain
-    # rendering takes the fast path and training opts in.
+    # gradients.  Off by default — the reference renderer is not
+    # differentiable at all, so plain rendering skips the reattachment and
+    # training opts in.
     differentiable: bool = False
 
 

@@ -1,12 +1,11 @@
 """Gather-free nearest-neighbor resampling for static index maps.
 
-TPU gathers run on the scalar unit (measured ~3 ns/element — tens of ms for
-texture-sized lookups), but every texture resample in this pipeline uses a
-*static* index map: destination pixel -> source texel is fixed by the two
-resolutions.  Such maps are periodic — ``idx[j + q] = idx[j] + p`` with
-q = dst/gcd, p = src/gcd — so the resample is q interleaved strided slices
-of the source: pure dense reshapes/stacks the VPU streams at memory
-bandwidth.  Falls back to ``jnp.take`` for aperiodic maps.
+Every texture resample in this pipeline uses a *static* index map:
+destination pixel -> source texel is fixed by the two resolutions.  Such
+maps are periodic — ``idx[j + q] = idx[j] + p`` with q = dst/gcd,
+p = src/gcd — so the resample is q interleaved strided slices of the source:
+pure dense reshapes/stacks with no data-dependent gather.  Falls back to
+``jnp.take`` for aperiodic maps.
 
 Replaces the reference's GPU texture-unit nearest samplers for the
 volumetric lookups (/root/reference/madarch/glsl/

@@ -1,6 +1,6 @@
 """Small vector-math helpers shared by the whole framework.
 
-TPU-native counterpart of the reference's ``Math_Utils`` package
+JAX counterpart of the reference's ``Math_Utils`` package
 (/root/reference/madarch/support/math_utils.ads:8-96) and of the GLSL
 ``maths.glsl`` constants (/root/reference/madarch/glsl/maths.glsl:1-8).
 

@@ -13,13 +13,14 @@ SCENE: simple_scene | global_illumination | light_shafts | obj_mesh |
 from __future__ import annotations
 
 import argparse
-import sys
 import time
+
+import jax
 
 from madarch_tpu.core.config import ProbeSettings, screen_shade_config
 from madarch_tpu.examples import scenes as S
 from madarch_tpu.io.image import write_png
-from madarch_tpu.utils.profiling import sync
+from madarch_tpu.utils.runtime import enable_compile_cache
 
 
 def main(argv=None):
@@ -33,6 +34,7 @@ def main(argv=None):
     ap.add_argument("--fast", action="store_true",
                     help="small probes + capped march steps")
     args = ap.parse_args(argv)
+    enable_compile_cache()
 
     w, h = (int(x) for x in args.size.split("x"))
     kwargs = {"width": w, "height": h}
@@ -58,10 +60,10 @@ def main(argv=None):
         if step_physics is not None:
             step_physics()
         img = r.render()
-        sync(img)
+        jax.block_until_ready(img)
         print(f"frame {i}: {time.perf_counter() - t0:.3f}s")
 
-    out = args.out or f"/tmp/{args.scene}_{w}x{h}.png"
+    out = args.out or f"{args.scene}_{w}x{h}.png"
     write_png(out, img)
     print(f"wrote {out}")
 

@@ -121,12 +121,11 @@ def obj_mesh(width=1000, height=1000, obj_path=None, triangle_capacity=1000,
     """examples/obj_mesh/main.adb: suzanne.obj with a fine 30×20×20 × 0.1
     partitioning grid.
 
-    ``mode="exact"`` (default): 968 exact Triangle primitives, served by
-    the chunked Pallas kernel layout (ops/march.py).
+    ``mode="exact"`` (default): 968 exact Triangle primitives, evaluated
+    densely per march step in ray chunks (render/context.py).
     ``mode="baked"``: the mesh baked into a dense distance map sampled
     trilinearly — the reference's distance-map path
-    (meshes-distance_maps.adb:158-301 + scene_custom.glsl sampling); runs
-    on the XLA path (grid lookups have no planar kernel form).
+    (meshes-distance_maps.adb:158-301 + scene_custom.glsl sampling).
     """
     from madarch_tpu.scene.mesh import add_mesh_to_renderer
     from madarch_tpu.native import load_obj

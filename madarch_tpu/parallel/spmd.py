@@ -1,20 +1,20 @@
 """SPMD scaling over a device mesh.
 
 The reference is a single-GPU engine with no distribution
-(SURVEY.md §5); the TPU rebuild's scaling design maps rendering onto SPMD:
+(SURVEY.md §5); this rebuild's scaling design maps rendering onto SPMD:
 
 - **rays** (screen pixels, probe-radiance texels, froxel/scattering samples)
   shard across the mesh's 'rays' axis — the data-parallel axis; batches are
   padded to a mesh multiple so ANY resolution shards;
 - **scene data and probe atlases replicate**; the irradiance integration and
   any parameter gradients become cross-chip psums inserted by XLA from the
-  sharding annotations (collectives ride ICI);
+  sharding annotations;
 - the training step (differentiable render + grad) all-reduces parameter
   gradients automatically through jit's partitioner, with donated
   scene/state buffers.
 
-Call ``init_distributed()`` before building the mesh for multi-host pods;
-single-host multi-chip works as-is.
+Call ``init_distributed()`` before building the mesh for a multi-host
+cluster; a single host with several devices works as-is.
 """
 from __future__ import annotations
 
@@ -38,12 +38,13 @@ from madarch_tpu.scene.scene import SceneData, SceneSpec
 
 def init_distributed(coordinator_address=None, num_processes=None,
                      process_id=None):
-    """Guarded ``jax.distributed.initialize`` for multi-host pods.
+    """Guarded ``jax.distributed.initialize`` for a multi-host cluster.
 
     With explicit arguments, joins that cluster (the multi-host test
     drives a 2-process CPU cluster through this — tests/test_multihost.py);
     with none, autodetects from the coordinator env (JAX_COORDINATOR_ADDRESS
-    or the TPU pod env) and no-ops when absent or already initialized."""
+    or COORDINATOR_ADDRESS) and no-ops when absent or already
+    initialized."""
     if coordinator_address is not None:
         # must run before ANY backend-touching call (including the
         # process_count guard below)
@@ -59,8 +60,7 @@ def init_distributed(coordinator_address=None, num_processes=None,
     if jax.process_count() > 1:
         return True  # already initialized
     has_env = bool(os.environ.get("JAX_COORDINATOR_ADDRESS")
-                   or os.environ.get("COORDINATOR_ADDRESS")
-                   or os.environ.get("MEGASCALE_COORDINATOR_ADDRESS"))
+                   or os.environ.get("COORDINATOR_ADDRESS"))
     if not has_env:
         return False
     try:
@@ -119,20 +119,16 @@ class RaySharder:
         ``while_loop`` condition a global reduce, i.e. a cross-chip
         ``pred[] all-reduce`` per march iteration (measured: 6 in-loop
         collectives in the GI frame HLO).  Inside shard_map each device
-        marches only its rays with a device-local condition, and Pallas
-        kernels partition cleanly.  Outputs are sharded on the ray axis;
-        autodiff through shard_map psums gradients of replicated operands
-        across chips — the parameter all-reduce of the training step.
+        marches only its rays with a device-local condition.  Outputs are
+        sharded on the ray axis; autodiff through shard_map psums gradients
+        of replicated operands across chips — the parameter all-reduce of
+        the training step.
         """
         sharded = tuple(self.pad(a) for a in sharded)
         in_specs = tuple(P(self.axis) for _ in sharded) \
             + tuple(P() for _ in replicated)
-        # check_vma=False: pallas_call out_shapes carry no varying-axis
-        # metadata, which the checker rejects inside shard_map.  The
-        # gradient psum for replicated operands is unaffected — it is the
-        # transpose of the P() in_specs, not a product of the checker.
         f = jax.shard_map(fn, mesh=self.mesh, in_specs=in_specs,
-                          out_specs=P(self.axis), check_vma=False)
+                          out_specs=P(self.axis))
         return f(*sharded, *replicated)
 
 
@@ -334,7 +330,7 @@ def measure_scaling(builder=None, width: int = 256, height: int = 256,
     """Rays/s scaling efficiency: sharded render on the full mesh vs a
     1-device mesh, same scene and shapes.  Returns a dict with times and
     efficiency = t1 / (tN · N).  On the CPU fake cluster this validates the
-    machinery; on a real slice it is the BASELINE.json scaling metric."""
+    machinery only; it measures speed only on real devices."""
     import time
 
     if builder is None:
@@ -357,7 +353,6 @@ def measure_scaling(builder=None, width: int = 256, height: int = 256,
         for _ in range(frames):
             img, st = run(data, r.camera, st)
         jax.block_until_ready(img)
-        float(jnp.sum(img))
         results[n] = (time.time() - t0) / frames
 
     eff = results[1] / (results[n_all] * n_all) if n_all > 1 else 1.0

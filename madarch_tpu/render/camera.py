@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
 
 EYE = np.array([0.0, 0.0, -1.5], np.float32)
@@ -32,8 +33,12 @@ def camera_rays(frag_xy, position, orientation):
         axis=-1)
     to_frag = frag - jnp.asarray(EYE)
     local_dir = to_frag / jnp.linalg.norm(to_frag, axis=-1, keepdims=True)
-    dirs = jnp.einsum("ij,...j->...i", orientation, local_dir)
-    origins = jnp.einsum("ij,...j->...i", orientation, frag) + position
+    # full f32 for geometry: a reduced-precision matmul would move every
+    # ray origin and direction by ~1e-3
+    hi = lax.Precision.HIGHEST
+    dirs = jnp.einsum("ij,...j->...i", orientation, local_dir, precision=hi)
+    origins = jnp.einsum("ij,...j->...i", orientation, frag,
+                         precision=hi) + position
     return origins, dirs
 
 

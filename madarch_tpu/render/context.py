@@ -1,19 +1,16 @@
-"""SceneCtx: one object bundling everything the marches need.
+"""SceneCtx: one object bundling the scene-distance closures the marches
+need.
 
-Carries both the generic batched-SDF closure (works for any primitive type,
-differentiable) and the packed planar-scene representation consumed by the
-fused Pallas kernels.  March entry points accept either a bare callable
-(generic path) or a SceneCtx (kernel fast path when available).
+Carries the march closure (stop-gradient scene data, chunked over rays for
+many-slot scenes) and the differentiable closure used for hit-gradient
+reattachment and autodiff normals.  March entry points accept either a bare
+batched-SDF callable or a SceneCtx.
 """
 from __future__ import annotations
 
-import os
-
 import jax
-import jax.numpy as jnp
 from jax import lax
 
-from madarch_tpu.ops import march as march_ops
 from madarch_tpu.scene.scene import SceneData, SceneSpec, scene_sdf
 
 # Ray-chunk size for many-slot scene SDF evaluation: a dense march step
@@ -43,82 +40,19 @@ def _chunked_vmap(fn_one, p, want_chunks=True):
     return out.reshape(-1)[:n]
 
 
-def _kernels_enabled() -> bool:
-    """Kernels run on TPU by default; CPU uses the XLA fallback (interpret
-    mode is for parity tests only, via MADARCH_FORCE_PALLAS=1)."""
-    if os.environ.get("MADARCH_NO_PALLAS", "") == "1":
-        return False
-    if os.environ.get("MADARCH_FORCE_PALLAS", "") == "1":
-        return True
-    return jax.default_backend() == "tpu"
-
-
 class SceneCtx:
     def __init__(self, spec: SceneSpec, data: SceneData):
-        self.spec = spec
         data_sg = jax.tree.map(lax.stop_gradient, data)
-        self.data = data
         self.sdf_b_diff = jax.vmap(lambda p: scene_sdf(spec, data, p))
-        self.max_dist = spec.max_dist
 
         # Marches evaluate the full scene *densely* (vectorized over
         # slots), chunked over rays to bound the [rays, slots] working set.
         # The reference's per-ray candidate-list iteration
-        # (partitioning_closest, madarch-scenes.adb:839-1118) is the wrong
-        # shape for this hardware: each candidate fetch is a gather, TPU
-        # gathers run on the scalar unit, and a measured 968-triangle march
-        # was 47× SLOWER through [rays, K] candidate gathers than through
-        # brute-force dense slot evaluation on the VPU.  The kernel path's
-        # mesh-scale answer is the chunked layout + global-sphere far-field
-        # short-circuit in ops/march.py; the uniform grid remains the
-        # host/query-side structure (grid_closest, builders).
+        # (partitioning_closest, madarch-scenes.adb:839-1118) is not used on
+        # the march path; the uniform grid remains the host/query-side
+        # structure (grid_closest, builders).  Whether candidate lists or
+        # the BVH beat dense evaluation on meshes is an open measurement.
         n_slots = sum(n for _, _, n, _ in spec.prim_bounds())
         chunky = n_slots > CHUNK_SLOT_THRESHOLD
         self.sdf_b = lambda p: _chunked_vmap(
             lambda q: scene_sdf(spec, data_sg, q), p, want_chunks=chunky)
-
-        self.plan = march_ops.build_plan(spec) if _kernels_enabled() else None
-        if self.plan is not None:
-            self.packed = march_ops.pack_params(self.plan, data_sg)
-            self.lpos_vec, self.n_light_slots = \
-                march_ops.pack_light_positions(spec, data_sg)
-            # material roughness as SMEM scalars: the in-kernel
-            # reflection gate of the folded specular mode-2 bounce
-            self.rough_vec = data_sg.materials["roughness"] \
-                .astype(jnp.float32).reshape(-1, 1)
-        else:
-            self.packed = None
-            self.lpos_vec, self.n_light_slots = None, 0
-            self.rough_vec = None
-
-    @property
-    def use_kernel(self) -> bool:
-        return self.plan is not None
-
-    @property
-    def fused_available(self) -> bool:
-        """True when the fused geometry kernel can serve this scene: kernel
-        path on and every live light has a vec3 'position' field (the
-        shadow-ray target)."""
-        return self.plan is not None and self.lpos_vec is not None
-
-    def geometry(self, origins, dirs, probes, cfg, enabled=None,
-                 want_ao=True, want_shadows=True, want_vis=True,
-                 want_reflection=False):
-        """Run the fused march+classify+shadow+probe-visibility kernel.
-        ``want_*`` statically skip marches the caller discards
-        (reflection-ray calls need no AO).  ``want_reflection`` folds
-        the specular mode-2 bounce into the launch (the result dict's
-        "refl" key; see pallas_geometry)."""
-        from madarch_tpu.render.raymarch import SURFACE_OFFSET
-        return march_ops.pallas_geometry(
-            self.plan, self.packed, self.lpos_vec,
-            self.n_light_slots, origins, dirs, self.max_dist,
-            probe_spacing=probes.grid_spacing,
-            probe_dims=probes.grid_dimensions,
-            surface_offset=SURFACE_OFFSET,
-            ao_steps=cfg.ambient_occlusion_steps,
-            max_steps=cfg.max_march_steps, enabled=enabled,
-            want_ao=want_ao, want_shadows=want_shadows, want_vis=want_vis,
-            mat_rough_vec=self.rough_vec if want_reflection else None,
-            refl_shadows=cfg.add_indirect_specular)

@@ -17,13 +17,11 @@ from madarch_tpu.render.raymarch import SURFACE_OFFSET, softshadows
 
 def direct_lighting(spec, data, sdf_b, pos, normal, view_dir, albedo,
                     metallic, roughness, *, compute_specular, enabled=None,
-                    max_steps=None, shadows_by_slot=None):
+                    max_steps=None):
     """compute_direct_lighting (lighting.glsl:1-40) for a batch of points.
 
     view_dir is the *incoming* ray direction (the reference's ``dir``);
     shading uses V = -dir.  Shadow march: origin pos + n·0.25, k = 64.
-    ``shadows_by_slot`` f32[L, N] (from the fused geometry kernel) replaces
-    the per-slot penumbra marches when given.
     """
     n_pts = pos.shape[0]
     v = -view_dir
@@ -33,7 +31,6 @@ def direct_lighting(spec, data, sdf_b, pos, normal, view_dir, albedo,
     if max_steps is not None:
         march_kwargs["max_steps"] = max_steps
 
-    slot_i = 0
     for ltype, cap, n, static in spec.light_bounds():
         count = None if static else data.light_counts[ltype.name]
         for slot in range(n):
@@ -51,20 +48,16 @@ def direct_lighting(spec, data, sdf_b, pos, normal, view_dir, albedo,
                 else (ndotl > EPSILON) & live
             if enabled is not None:
                 shadow_on = shadow_on & enabled
-            if shadows_by_slot is not None:
-                shadows = shadows_by_slot[slot_i]
-            else:
-                shadows = softshadows(
-                    sdf_b,
-                    pos + normal * SURFACE_OFFSET,
-                    ldir,
-                    jnp.zeros((n_pts,), jnp.float32),
-                    ldist,
-                    64.0,
-                    enabled=shadow_on,
-                    **march_kwargs,
-                )
-            slot_i += 1
+            shadows = softshadows(
+                sdf_b,
+                pos + normal * SURFACE_OFFSET,
+                ldir,
+                jnp.zeros((n_pts,), jnp.float32),
+                ldist,
+                64.0,
+                enabled=shadow_on,
+                **march_kwargs,
+            )
             shadows = jnp.where(shadow_on, shadows, 0.0)
 
             contrib = ((kd * albedo / PI + ks)

@@ -1,7 +1,7 @@
 """The frame pipeline: radiance → irradiance → [visibility → scattering] →
 screen, with probe-atlas feedback across frames.
 
-TPU-native counterpart of ``Madarch.Renderers.Render``
+JAX counterpart of ``Madarch.Renderers.Render``
 (/root/reference/madarch/madarch-renderers.adb:302-321).  Each GL render pass
 becomes a jitted function producing an array; the textures become fields of
 ``FrameState`` threaded functionally through ``render_frame`` — the radiance
@@ -74,11 +74,11 @@ def radiance_pass(spec: SceneSpec, data: SceneData, probes: ProbeSettings,
     dirs = probes_mod.texel_directions(rr)                   # [rr²,3]
     n_probes = probes.num_probes
 
-    # direction-major ray order: a Pallas ray tile then holds ONE texel
-    # direction across probes instead of every direction of one probe —
-    # march lengths within a tile are coherent, so tiles exit early
-    # instead of running to the slowest direction (exact: a permutation,
-    # inverted below)
+    # direction-major ray order: neighbouring rays share ONE texel
+    # direction across probes instead of every direction of one probe, so
+    # march lengths of neighbouring rays are coherent.  Exact: a
+    # permutation, inverted below.  It pays off only for a march that
+    # exits per block of rays; the batch-wide XLA march is indifferent.
     origins = jnp.tile(p_world, (rr * rr, 1))                # [rr²·P,3]
     ray_dirs = jnp.repeat(dirs, n_probes, axis=0)
     n_rays = origins.shape[0]
@@ -110,10 +110,10 @@ BLOCK_W = 32
 def _to_blocks(arr, height, width):
     """Scanline-flat [H·W, ...] -> 32×32-block-major flat order.
 
-    One Pallas ray tile (8×128 = 1024 rays) then covers one compact screen
-    square instead of 1.28 full scanlines — the tile's spatial footprint
-    shrinks ~25×, which is what makes the chunk-culling admit test
-    (ops/march.py) and the tile-level early march exit actually fire."""
+    Each run of 1024 consecutive rays then covers one compact screen square
+    instead of 1.28 full scanlines.  Exact (a permutation, inverted by
+    _from_blocks); it pays off only for a march that exits or culls per
+    block of rays — the batch-wide XLA march is indifferent to it."""
     tail = arr.shape[1:]
     a = arr.reshape(height // BLOCK_H, BLOCK_H, width // BLOCK_W, BLOCK_W,
                     *tail)

@@ -1,12 +1,12 @@
 """DDGI irradiance probes: octahedral atlases, sampling, integration.
 
-TPU-native counterpart of the reference's probe subsystem
+JAX counterpart of the reference's probe subsystem
 (/root/reference/madarch/glsl/probe_utils.glsl, render_probes.glsl,
 update_probe_irradiance.glsl).  The probe atlases are plain f32[H, W, 3]
 arrays; octahedral texel directions are precomputed constants; the per-frame
 irradiance re-integration (update_probe_irradiance.glsl:17-42 — a full
 cosine-weighted sum over each probe's radiance texels) becomes a single
-constant-weight matmul over all probes, which XLA maps straight onto the MXU.
+constant-weight matmul over all probes.
 
 Texture-sampling semantics: the reference reads its atlases through GL
 bilinear samplers with half-texel clamps that keep lookups inside one probe
@@ -18,31 +18,19 @@ from __future__ import annotations
 
 from functools import lru_cache
 
-import jax
-import os
-
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
 from madarch_tpu.core.config import ProbeSettings
-from madarch_tpu.core.vecmath import dot, mix, sign_not_zero
+from madarch_tpu.core.vecmath import dot, length, mix, sign_not_zero
 from madarch_tpu.render.raymarch import SURFACE_OFFSET, raycast_visibility
 
-def _atlas_dtype():
-    """MXU atlas contractions run with bf16 inputs + f32 accumulation on
-    TPU: the [N, res²] bilinear-weight operand dominates HBM traffic at
-    screen ray counts (640k × 256 f32 ≈ 650 MB/frame) and
-    radiance/irradiance values are visual data with gates far above
-    bf16's ~0.4% relative error (bench.GOLDEN_GATES; measured on the GI
-    128² golden: zero visible drift).  Measured gain is small (~1% of
-    the screen pass — XLA already fuses the weight construction into the
-    contraction) but free.  CPU keeps f32 so the stored goldens stay
-    exact; MADARCH_ATLAS_F32=1 restores full precision everywhere."""
-    import jax
-    if os.environ.get("MADARCH_ATLAS_F32") == "1" \
-            or jax.default_backend() != "tpu":
-        return jnp.float32
-    return jnp.bfloat16
+# Precision of every atlas contraction: full f32 on every backend, so
+# renders on any device stay comparable with the CPU goldens.  Whether a
+# cheaper precision (TF32, bf16) holds the golden gates is a measurement
+# still to make (PERF.md).
+ATLAS_PRECISION = lax.Precision.HIGHEST
 
 
 # ---------------------------------------------------------------------------
@@ -241,15 +229,15 @@ def radiance_mip1(settings: ProbeSettings, atlas):
 
 
 # ---------------------------------------------------------------------------
-# Matmul atlas sampling: texture gathers as MXU one-hot contractions.
+# Matmul atlas sampling: texture gathers as one-hot contractions.
 #
-# XLA's gather on TPU is scalar-unit bound; a frame samples the probe atlases
-# tens of millions of times, which dominated round-1 shading.  The TPU-native
-# formulation: bilinear lookup inside a res×res tile is a dot product of a
-# [res²] weight vector (4 nonzeros) with the tile's texels, so a batch of N
-# lookups against ALL P tiles at once is one [N, res²] × [res², P·3] matmul —
-# dense, MXU-shaped, no gathers anywhere.  Per-probe selection afterwards is
-# a compare-weighted reduction over the (small) probe axis.
+# A frame samples the probe atlases tens of millions of times.  Bilinear
+# lookup inside a res×res tile is a dot product of a [res²] weight vector
+# (4 nonzeros) with the tile's texels, so a batch of N lookups against ALL P
+# tiles at once is one [N, res²] × [res², P·3] matmul — dense, no gathers
+# anywhere.  Per-probe selection afterwards is a compare-weighted reduction
+# over the (small) probe axis.  Whether a direct bilinear gather is cheaper
+# on the GPU is an open measurement (PERF.md).
 # ---------------------------------------------------------------------------
 
 def bilinear_tile_weight_factors(ray_id, res: int):
@@ -285,8 +273,7 @@ def sample_all_tiles_bilinear(settings: ProbeSettings, atlas, ray_id,
     wy, wx = bilinear_tile_weight_factors(ray_id, res)  # [N,res] each
     w = (wy[..., :, None] * wx[..., None, :]).reshape(
         ray_id.shape[:-1] + (res * res,))
-    dt = _atlas_dtype()
-    vals = jnp.dot(w.astype(dt), flat.astype(dt),
+    vals = jnp.dot(w, flat, precision=ATLAS_PRECISION,
                    preferred_element_type=jnp.float32)
     return vals.reshape(ray_id.shape[:-1] + (n_tiles, 3))
 
@@ -303,8 +290,7 @@ def probe_one_hot_combine(n_tiles: int, pids, weights, vals):
     for k in range(pids.shape[0]):
         w_all = w_all + jnp.where(probe_ids == pids[k][..., None],
                                   weights[k][..., None], 0.0)
-    dt = _atlas_dtype()
-    return jnp.einsum("np,npc->nc", w_all.astype(dt), vals.astype(dt),
+    return jnp.einsum("np,npc->nc", w_all, vals, precision=ATLAS_PRECISION,
                       preferred_element_type=jnp.float32)
 
 
@@ -314,14 +300,14 @@ def probe_one_hot_combine(n_tiles: int, pids, weights, vals):
 
 def integrate_irradiance(settings: ProbeSettings, radiance_atlas):
     """Cosine-weighted re-integration of every probe's radiance into its
-    irradiance tile — one matmul over all probes (MXU)."""
+    irradiance tile — one matmul over all probes."""
     rr = settings.radiance_resolution
     ir = settings.irradiance_resolution
     w_np, wsum_np = _cosine_weights(ir, rr)
     w = jnp.asarray(w_np)
     wsum = jnp.asarray(wsum_np)
     rad = atlas_to_tiles(settings, radiance_atlas, rr)      # [P, rr², 3]
-    irr = jnp.einsum("ij,pjc->pic", w, rad,
+    irr = jnp.einsum("ij,pjc->pic", w, rad, precision=ATLAS_PRECISION,
                      preferred_element_type=jnp.float32) / wsum
     return tiles_to_atlas(settings, irr, ir)
 
@@ -332,15 +318,15 @@ def integrate_irradiance(settings: ProbeSettings, radiance_atlas):
 
 def sample_irradiance(settings: ProbeSettings, sdf_b, irr_atlas, pos, normal,
                       *, enabled=None, max_steps=300, method="matmul",
-                      vis8=None):
+                      vis=None):
     """8-corner trilinear, backface- and visibility-weighted probe lookup.
 
     pos/normal: f32[N,3].  Runs the 8·N visibility raycasts as one batched
-    march (or consumes precomputed ``vis8`` f32[8,N] from a fused geometry
-    kernel).  Returns f32[N,3] irradiance (sqrt-encode blend then square, as
-    in the reference).  ``method``: 'matmul' contracts against all tiles on
-    the MXU (fast path); 'gather' is the reference-shaped texture fetch kept
-    for parity tests.
+    march, unless the caller already marched them (``vis`` f32[8,N], as the
+    mode-3 reflection geometry does).  Returns f32[N,3] irradiance
+    (sqrt-encode blend then square, as in the reference).  ``method``:
+    'matmul' contracts against all tiles at once (the render path);
+    'gather' is the reference-shaped texture fetch kept for parity tests.
     """
     n_pts = pos.shape[0]
     spacing = jnp.asarray(settings.grid_spacing, jnp.float32)
@@ -358,18 +344,17 @@ def sample_irradiance(settings: ProbeSettings, sdf_b, irr_atlas, pos, normal,
                         0, dims - 1)                            # [8,N,3]
     probe_world = offseted.astype(jnp.float32) * spacing
     hit_to_probe = probe_world - pos[None]                      # [8,N,3]
-    probe_dist = jnp.linalg.norm(hit_to_probe, axis=-1)
-    probe_dist = jnp.maximum(probe_dist, 1e-6)
+    # length(): a shade point can sit exactly on a probe (a probe inside
+    # geometry hits at t = 0), where the plain norm's gradient is 0/0
+    probe_dist = jnp.maximum(length(hit_to_probe), 1e-6)
     dir_to_probe = hit_to_probe / probe_dist[..., None]
 
     # backface weight: ((dot+1)/2)² + 0.2
     angle = (dot(dir_to_probe, normal[None]) + 1.0) * 0.5
     weight = angle * angle + 0.2
 
-    # batched visibility march for all 8 corners (or kernel-precomputed)
-    if vis8 is not None:
-        vis = vis8
-    else:
+    # batched visibility march for all 8 corners
+    if vis is None:
         origins = jnp.broadcast_to(pos[None] + normal[None] * SURFACE_OFFSET,
                                    (8, n_pts, 3)).reshape(-1, 3)
         vis_dirs = dir_to_probe.reshape(-1, 3)

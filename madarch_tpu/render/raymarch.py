@@ -1,13 +1,12 @@
 """Batched sphere-tracing loops: raycast, soft shadows, ambient occlusion.
 
-TPU-native counterpart of the reference's hot device loops
+JAX counterpart of the reference's hot device loops
 (/root/reference/madarch/glsl/raymarching.glsl:1-57 and
 lighting.glsl:51-69).  The per-fragment divergent ``for`` loops become one
-``lax.while_loop`` over the whole ray batch with an active-lane mask: TPUs
-have no per-lane early exit, so every lane steps until the batch converges,
-which is exactly how a SIMD fragment quad executes divergent loops anyway.
-Masked lanes stop advancing (their ``t`` freezes), so extra iterations cost
-compute but never correctness.
+``lax.while_loop`` over the whole ray batch with an active-lane mask: every
+lane steps until the slowest ray of the batch converges.  Masked lanes stop
+advancing (their ``t`` freezes), so extra iterations cost compute but never
+correctness.
 
 Differentiability: ``lax.while_loop`` is not reverse-mode differentiable, so
 the march itself runs on stop-gradient scene data and the hit distance is
@@ -33,26 +32,22 @@ MIN_STEP_SIZE = 0.05
 # spheres stop overlapping (|d|+prev < step ⇒ geometry may have been
 # skipped), then fall back to ω=1 for that lane.  Hit positions remain
 # within eps of the surface — the backtrack makes the march exact, it only
-# reduces the step count (~1.5× fewer scene evals on open scenes).  The
+# reduces the step count (~1.5× fewer scene evals on open scenes).  A lane
+# whose relaxed step lands past its budget is retired only at the next
+# evaluation, once the step is verified (or backed up): an unverified
+# overshoot may have skipped a surface in front of the budget.  The
 # reference marches with ω=1 (raymarching.glsl:25-37); set omega=1.0 to
-# reproduce it step-for-step.
+# reproduce its hits.
 RELAXATION = 1.6
 # Offset of secondary-ray origins off the surface (lighting.glsl:32,
 # render_probes.glsl: `min_step_size * 5`).
 SURFACE_OFFSET = MIN_STEP_SIZE * 5.0
 
 
-def _stop_grad_tree(x):
-    return jax.tree.map(lax.stop_gradient, x)
-
-
 def _as_closure(sdf):
     """March entry points take either a batched-SDF callable or a SceneCtx
-    (render/context.py); return (closure, ctx-or-None)."""
-    if callable(sdf):
-        return sdf, None
-    ctx = sdf
-    return ctx.sdf_b, (ctx if ctx.use_kernel else None)
+    (render/context.py); return the batched closure."""
+    return sdf if callable(sdf) else sdf.sdf_b
 
 
 def raycast(sdf, origins, dirs, max_dist, *, eps=EPSILON,
@@ -73,12 +68,7 @@ def raycast(sdf, origins, dirs, max_dist, *, eps=EPSILON,
     # reverse rule); gradients re-enter through attach_hit_gradient.
     origins = lax.stop_gradient(origins)
     dirs = lax.stop_gradient(dirs)
-    sdf_b, ctx = _as_closure(sdf)
-    if ctx is not None:
-        from madarch_tpu.ops.march import pallas_raycast
-        return pallas_raycast(ctx.plan, ctx.packed, origins,
-                              dirs, max_dist, eps=eps, max_steps=max_steps,
-                              enabled=enabled, omega=omega)
+    sdf_b = _as_closure(sdf)
     # carries derive arithmetically from the ray arrays (not literal
     # zeros/ones) so their varying-axis type matches the body outputs when
     # the march runs per-device inside shard_map (parallel/spmd.py)
@@ -90,24 +80,28 @@ def raycast(sdf, origins, dirs, max_dist, *, eps=EPSILON,
         return (step < max_steps) & jnp.any(active)
 
     def body(state):
-        step, t, active, prev_r, step_len, om = state
+        step, t, active, prev_r, step_len, om, found = state
         p = origins + t[:, None] * dirs
         d = sdf_b(p)
         fail = (om > 1.0) & (jnp.abs(d) + prev_r <= step_len)
-        hit = ~fail & (d < eps)
+        beyond = ~fail & (t >= max_dist)  # verified past the budget: miss
+        hit = ~fail & ~beyond & (d < eps)
+        found = found | (active & hit)
         new_step = jnp.where(fail, step_len * (1.0 - omega), d * om)
         om = jnp.where(fail, 1.0, om)
-        still = active & ~hit
+        still = active & ~hit & ~beyond
         t = jnp.where(still, t + new_step, t)
         prev_r = jnp.where(still, jnp.abs(d), prev_r)
         step_len = jnp.where(still, new_step, step_len)
-        still = still & (t < max_dist)
-        return step + 1, t, still, prev_r, step_len, om
+        return step + 1, t, still, prev_r, step_len, om, found
 
-    _, t, _, _, _, _ = lax.while_loop(
-        cond, body, (jnp.int32(0), t0, active0, t0, t0, t0 + omega))
+    _, t, _, _, _, _, found = lax.while_loop(
+        cond, body,
+        (jnp.int32(0), t0, active0, t0, t0, t0 + omega, t0 > 1.0))
     pos = origins + t[:, None] * dirs
-    hit = (sdf_b(pos) < eps) & (t < max_dist)
+    # a lane is a hit where the loop stopped it on the surface; lanes that
+    # ran out of steps count if they already sit within eps
+    hit = found | ((sdf_b(pos) < eps) & (t < max_dist))
     if enabled is not None:
         hit = hit & enabled
     return t, hit, pos
@@ -121,13 +115,7 @@ def raycast_visibility(sdf, origins, dirs, max_dists, *, eps=EPSILON,
     origins = lax.stop_gradient(origins)
     dirs = lax.stop_gradient(dirs)
     max_dists = lax.stop_gradient(max_dists)
-    sdf_b, ctx = _as_closure(sdf)
-    if ctx is not None:
-        from madarch_tpu.ops.march import pallas_visibility
-        return pallas_visibility(ctx.plan, ctx.packed,
-                                 origins, dirs, max_dists, eps=eps,
-                                 max_steps=max_steps, enabled=enabled,
-                                 omega=omega)
+    sdf_b = _as_closure(sdf)
     t0 = origins[:, 0] * 0.0  # varying-typed zeros (see raycast)
     active0 = (t0 < 1.0) if enabled is None else enabled
     active0 = active0 & (t0 < max_dists)
@@ -141,15 +129,15 @@ def raycast_visibility(sdf, origins, dirs, max_dists, *, eps=EPSILON,
         p = origins + t[:, None] * dirs
         d = sdf_b(p)
         fail = (om > 1.0) & (jnp.abs(d) + prev_r <= step_len)
-        hit = ~fail & (d < eps)
+        beyond = ~fail & (t >= max_dists)  # verified past the budget
+        hit = ~fail & ~beyond & (d < eps)
         blocked = blocked | (active & hit)
         new_step = jnp.where(fail, step_len * (1.0 - omega), d * om)
         om = jnp.where(fail, 1.0, om)
-        still = active & ~hit
+        still = active & ~hit & ~beyond
         t = jnp.where(still, t + new_step, t)
         prev_r = jnp.where(still, jnp.abs(d), prev_r)
         step_len = jnp.where(still, new_step, step_len)
-        still = still & (t < max_dists)
         return step + 1, t, still, blocked, prev_r, step_len, om
 
     _, _, _, blocked, _, _, _ = lax.while_loop(
@@ -170,13 +158,7 @@ def softshadows(sdf, origins, dirs, min_dists, max_dists, k, *,
     dirs = lax.stop_gradient(dirs)
     min_dists = lax.stop_gradient(min_dists)
     max_dists = lax.stop_gradient(max_dists)
-    sdf_b, ctx = _as_closure(sdf)
-    if ctx is not None:
-        from madarch_tpu.ops.march import pallas_softshadows
-        return pallas_softshadows(ctx.plan, ctx.packed,
-                                  origins, dirs, min_dists, max_dists, k,
-                                  eps=eps, max_steps=max_steps,
-                                  enabled=enabled)
+    sdf_b = _as_closure(sdf)
     n = origins.shape[0]
     zeros = origins[:, 0] * 0.0  # varying-typed (see raycast)
     t0 = jnp.broadcast_to(min_dists, (n,)).astype(jnp.float32) + zeros
@@ -224,7 +206,7 @@ def ambient_occlusion(sdf, pos, normal, *, steps=3, step_size=0.1):
     """Exponentially-weighted SDF probes along the normal
     (lighting.glsl:51-69): ao = 0.6 + 0.4·Σ(wᵢ·sdf(p+n·(i+1)h)) / Σ(wᵢ·(i+1)h)
     with wᵢ = 2^-i."""
-    sdf_b, _ = _as_closure(sdf)
+    sdf_b = _as_closure(sdf)
     if steps <= 0:
         return jnp.ones(pos.shape[:-1], jnp.float32)
     ao_sum = 0.0

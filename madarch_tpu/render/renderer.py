@@ -1,6 +1,6 @@
 """The engine facade: scene mutation API + frame loop.
 
-TPU-native counterpart of ``Madarch.Renderers``
+JAX counterpart of ``Madarch.Renderers``
 (/root/reference/madarch/madarch-renderers.ads:46-97): Create/Render,
 Add/Set_Primitive, Set/Add_Material, Set_Light, Set_Camera_*,
 Eval_Distance_To.  Instead of writing std140 bytes into GL uniform buffers

@@ -6,29 +6,19 @@ indirect (diffuse always; specular per ShadeConfig mode) × ambient occlusion,
 sky gradient on miss.  The volumetric composite is applied by the caller
 (screen pass) since it needs the scattering texture.
 
-Two execution paths, selected by ``cfg.differentiable``:
-
-- **fused** (default on TPU): one ``pallas_geometry`` kernel per ray batch
-  returns hit distance, nearest-primitive index + material, FD normal, AO,
-  per-light penumbra factors and the 8 probe-visibility bits — all marches
-  VMEM-resident (the reference's one-fragment-shader-does-everything hot
-  path, render_probes.glsl:246-292); XLA then does materials, BRDF and the
-  MXU atlas sampling.
-- **differentiable**: marches run on stop-gradient scene data and gradients
-  re-enter through the implicit-function-theorem hit reattachment and
-  autodiff SDF-gradient normals, making the whole shade differentiable
-  w.r.t. primitive, material, light, and camera parameters.
+Marches run on stop-gradient scene data.  With ``cfg.differentiable``
+gradients re-enter through the implicit-function-theorem hit reattachment
+and autodiff SDF-gradient normals, making the whole shade differentiable
+w.r.t. primitive, material, light, and camera parameters.
 """
 from __future__ import annotations
-
-import os
 
 import jax
 import jax.numpy as jnp
 from jax import lax
 
 from madarch_tpu.core.config import ProbeSettings, ShadeConfig
-from madarch_tpu.core.vecmath import dot, reflect, vec3
+from madarch_tpu.core.vecmath import dot, length, reflect, vec3
 from madarch_tpu.render import probes as probes_mod
 from madarch_tpu.render.lighting import direct_lighting, indirect_lighting
 from madarch_tpu.render.raymarch import (SURFACE_OFFSET, ambient_occlusion,
@@ -36,33 +26,7 @@ from madarch_tpu.render.raymarch import (SURFACE_OFFSET, ambient_occlusion,
                                          raycast_visibility, scene_normal)
 from madarch_tpu.scene.scene import (SceneData, SceneSpec, material_lookup,
                                      primitive_info, primitive_material_id,
-                                     scene_sdf, scene_sdf_info)
-
-
-def make_sdf_b(spec: SceneSpec, data: SceneData, *, stop_grad: bool):
-    """Batched scene SDF closure f32[N,3] -> f32[N]."""
-    d = jax.tree.map(lax.stop_gradient, data) if stop_grad else data
-    return jax.vmap(lambda p: scene_sdf(spec, d, p))
-
-
-def _fused_ctx(sdf_b, cfg):
-    """The SceneCtx when the fused geometry kernel should serve this call
-    (kernel-capable scene), else None.
-
-    Differentiable shades use the kernel too: every march output is
-    stop-gradient geometry by construction (the kernel consumes the
-    stop-grad packed scene), and gradients re-enter exactly where the
-    XLA differentiable path put them — the IFT hit reattachment and the
-    autodiff SDF-gradient normal at hit points (render/raymarch.py).
-    AO/shadows/probe-visibility were already computed on stop-grad scene
-    closures there, so serving them from the kernel changes values only
-    within kernel-vs-XLA parity tolerance, not gradient structure."""
-    if callable(sdf_b):
-        return None
-    ctx = sdf_b
-    if not ctx.fused_available:
-        return None
-    return ctx
+                                     scene_sdf_info)
 
 
 def sky_color(dirs):
@@ -71,34 +35,22 @@ def sky_color(dirs):
     return base - 0.7 * dirs[..., 1:2]
 
 
-def shade_hits(spec, data, probe_settings, cfg, sdf_b, sdf_b_diff,
-               irr_atlas, rad_atlas, pos, normal, dirs, hit, geom=None):
-    """Direct + indirect (+ specular) × AO for hit points; f32[N,3].
-
-    ``geom``: optional fused-kernel outputs (material, AO, shadows,
-    probe visibility) — when absent they are recomputed in XLA.
-    """
-    if geom is not None:
-        material_id = geom["mid"]
-        shadows_by_slot = geom["shadows"]
-        vis8 = geom["vis8"]
-    else:
-        data_sg = jax.tree.map(lax.stop_gradient, data)
-        _, prim_index = jax.vmap(
-            lambda p: scene_sdf_info(spec, data_sg, p))(pos)
-        material_id = primitive_material_id(spec, data, prim_index)
-        shadows_by_slot = None
-        vis8 = None
+def shade_hits(spec, data, probe_settings, cfg, sdf_b, irr_atlas, rad_atlas, pos, normal, dirs, hit):
+    """Direct + indirect (+ specular) × AO for hit points; f32[N,3]."""
+    data_sg = jax.tree.map(lax.stop_gradient, data)
+    _, prim_index = jax.vmap(
+        lambda p: scene_sdf_info(spec, data_sg, p))(pos)
+    material_id = primitive_material_id(spec, data, prim_index)
     albedo, metallic, roughness = material_lookup(data, material_id)
 
     direct = direct_lighting(
         spec, data, sdf_b, pos, normal, dirs, albedo, metallic, roughness,
         compute_specular=cfg.direct_specular, enabled=hit,
-        max_steps=cfg.max_march_steps, shadows_by_slot=shadows_by_slot)
+        max_steps=cfg.max_march_steps)
 
     irradiance = probes_mod.sample_irradiance(
         probe_settings, sdf_b, irr_atlas, pos, normal, enabled=hit,
-        max_steps=cfg.max_march_steps, vis8=vis8)
+        max_steps=cfg.max_march_steps)
 
     specular_dir = reflect(dirs, normal)
     specular_col = jnp.zeros_like(pos)
@@ -112,8 +64,7 @@ def shade_hits(spec, data, probe_settings, cfg, sdf_b, sdf_b_diff,
         elif cfg.indirect_specular_mode == 2:
             specular_col = sample_radiance_no_specular(
                 spec, data, probe_settings, cfg, sdf_b, rad_atlas,
-                pos, normal, specular_dir, enabled=spec_enabled,
-                refl=geom.get("refl") if geom is not None else None)
+                pos, normal, specular_dir, enabled=spec_enabled)
         else:
             specular_col = compute_indirect_specular(
                 spec, data, probe_settings, cfg, sdf_b, irr_atlas,
@@ -124,33 +75,17 @@ def shade_hits(spec, data, probe_settings, cfg, sdf_b, sdf_b_diff,
         irradiance, specular_col, -dirs, normal, specular_dir,
         albedo, metallic, roughness)
 
-    if geom is not None:
-        ao = geom["ao"]
-    else:
-        ao = ambient_occlusion(sdf_b, pos, normal,
-                               steps=cfg.ambient_occlusion_steps)
+    ao = ambient_occlusion(sdf_b, pos, normal,
+                           steps=cfg.ambient_occlusion_steps)
     return ao[..., None] * (direct + indirect)
 
 
 def _reflection_geometry(spec, data, probe_settings, cfg, sdf_b, from_,
-                         spec_dir, *, enabled, need_vis=True,
-                         need_shadows=True):
+                         spec_dir, *, enabled):
     """Shared secondary-ray geometry for the specular modes: raycast +
-    nearest-primitive info (+ probe visibility around the reflection hit).
-    Uses the fused kernel when available, else the XLA path.  Returns
-    (hit, spec_pos, spec_normal, spec_mid, vis8-or-None, shadows-or-None).
+    nearest-primitive info + probe visibility around the reflection hit.
+    Returns (hit, spec_pos, spec_normal, spec_mid, vis f32[8,N]).
     """
-    ctx = _fused_ctx(sdf_b, cfg)
-    if ctx is not None:
-        # reflection rays never need AO (render_probes.glsl modes 2/3 use
-        # only visibility + shadow terms at the reflection hit)
-        g = ctx.geometry(from_, spec_dir, probe_settings, cfg,
-                         enabled=enabled, want_ao=False,
-                         want_shadows=need_shadows, want_vis=need_vis)
-        spec_pos = from_ + g["t"][:, None] * spec_dir
-        return (g["hit"], spec_pos, g["normal"], g["mid"], g["vis8"],
-                g["shadows"] if need_shadows else None)
-
     t, hit, spec_pos = raycast(sdf_b, from_, spec_dir, spec.max_dist,
                                enabled=enabled,
                                max_steps=cfg.max_march_steps)
@@ -158,12 +93,11 @@ def _reflection_geometry(spec, data, probe_settings, cfg, sdf_b, from_,
     _, prim_index = jax.vmap(
         lambda p: scene_sdf_info(spec, data_sg, p))(spec_pos)
     if cfg.differentiable:
-        # per-ray primitive_info gathers f32 params by dynamic index; the
-        # transpose is a SERIAL 65k-update scatter-add (two XLA while
-        # loops eating ~350 ms of the 256² train step).  The SDF-gradient
-        # normal is identical at the winning primitive's surface and its
-        # transpose is dense; material ids are an int gather (no grads).
-        from madarch_tpu.scene.scene import primitive_material_id
+        # per-ray primitive_info gathers f32 params by dynamic index,
+        # whose transpose XLA serializes as a scatter-add while loop with
+        # one update per ray.  The SDF-gradient normal is identical at the
+        # winning primitive's surface and its transpose is dense; material
+        # ids are an int gather (no grads).
         s_mid = primitive_material_id(spec, data, prim_index)
         sdfd = sdf_b.sdf_b_diff if hasattr(sdf_b, "sdf_b_diff") else sdf_b
         s_normal = scene_normal(sdfd, spec_pos)
@@ -172,102 +106,68 @@ def _reflection_geometry(spec, data, probe_settings, cfg, sdf_b, from_,
             lambda i, p: primitive_info(spec, data, i, p))(prim_index,
                                                            spec_pos)
 
-    vis = None
-    if need_vis:
-        n_pts = from_.shape[0]
-        settings = probe_settings
-        spacing = jnp.asarray(settings.grid_spacing, jnp.float32)
-        dims = jnp.asarray(settings.grid_dimensions, jnp.int32)
-        grid_pos = jnp.floor(spec_pos / spacing).astype(jnp.int32)
-        offsets = jnp.asarray(
-            [[(i >> 0) & 1, (i >> 1) & 1, (i >> 2) & 1] for i in range(8)],
-            jnp.int32)
-        offseted = jnp.clip(grid_pos[None] + offsets[:, None], 0, dims - 1)
-        probe_world = offseted.astype(jnp.float32) * spacing
-        to_probe = probe_world - spec_pos[None]
-        p_dist = jnp.maximum(jnp.linalg.norm(to_probe, axis=-1), 1e-6)
-        dir_to_probe = to_probe / p_dist[..., None]
-        vis_enabled = jnp.broadcast_to((enabled & hit)[None], (8, n_pts))
-        vis = raycast_visibility(
-            sdf_b,
-            jnp.broadcast_to(
-                spec_pos[None] + s_normal[None] * SURFACE_OFFSET,
-                (8, n_pts, 3)).reshape(-1, 3),
-            dir_to_probe.reshape(-1, 3),
-            (p_dist - SURFACE_OFFSET).reshape(-1),
-            enabled=vis_enabled.reshape(-1),
-            max_steps=cfg.max_march_steps).reshape(8, n_pts)
-    return hit, spec_pos, s_normal, s_mid, vis, None
+    n_pts = from_.shape[0]
+    spacing = jnp.asarray(probe_settings.grid_spacing, jnp.float32)
+    dims = jnp.asarray(probe_settings.grid_dimensions, jnp.int32)
+    grid_pos = jnp.floor(spec_pos / spacing).astype(jnp.int32)
+    offsets = jnp.asarray(
+        [[(i >> 0) & 1, (i >> 1) & 1, (i >> 2) & 1] for i in range(8)],
+        jnp.int32)
+    offseted = jnp.clip(grid_pos[None] + offsets[:, None], 0, dims - 1)
+    probe_world = offseted.astype(jnp.float32) * spacing
+    to_probe = probe_world - spec_pos[None]
+    p_dist = jnp.maximum(length(to_probe), 1e-6)
+    dir_to_probe = to_probe / p_dist[..., None]
+    vis_enabled = jnp.broadcast_to((enabled & hit)[None], (8, n_pts))
+    vis = raycast_visibility(
+        sdf_b,
+        jnp.broadcast_to(
+            spec_pos[None] + s_normal[None] * SURFACE_OFFSET,
+            (8, n_pts, 3)).reshape(-1, 3),
+        dir_to_probe.reshape(-1, 3),
+        (p_dist - SURFACE_OFFSET).reshape(-1),
+        enabled=vis_enabled.reshape(-1),
+        max_steps=cfg.max_march_steps).reshape(8, n_pts)
+    return hit, spec_pos, s_normal, s_mid, vis
 
 
 def sample_radiance_no_specular(spec, data, probe_settings, cfg, sdf_b,
-                                rad_atlas, pos, normal, spec_dir, *, enabled,
-                                refl=None):
+                                rad_atlas, pos, normal, spec_dir, *, enabled):
     """Indirect specular mode 2 (render_probes.glsl:138-209): reflect-ray
     raycast, best-probe pick by backface+visibility weight, radiance lookup
     at mip 1, plus the direct specular highlight at the reflection point when
-    add_indirect_specular (M_ADD_INDIRECT_SPECULAR) is set.
-
-    ``refl``: optional folded reflection geometry from the fused kernel
-    (pallas_geometry's "refl" dict) — skips the separate reflection
-    launch entirely."""
+    add_indirect_specular (M_ADD_INDIRECT_SPECULAR) is set."""
     n_pts = pos.shape[0]
     settings = probe_settings
     spacing = jnp.asarray(settings.grid_spacing, jnp.float32)
     dims = jnp.asarray(settings.grid_dimensions, jnp.int32)
 
     from_ = pos + normal * SURFACE_OFFSET
-    if refl is not None:
-        hit = refl["hit"]
-        spec_pos = from_ + refl["t"][:, None] * spec_dir
-        spec_mid = refl["mid"]
-        vis = refl["vis8"]
-        shadows = refl["shadows"] if cfg.add_indirect_specular else None
-        if cfg.differentiable:
-            # match the XLA differentiable path: reflection hit position
-            # is stop-grad (raycast there returns stop-grad pos), normal
-            # is the autodiff SDF gradient
-            spec_pos = lax.stop_gradient(spec_pos)
-            sdfd = sdf_b.sdf_b_diff if hasattr(sdf_b, "sdf_b_diff") \
-                else sdf_b
-            spec_normal_v = scene_normal(sdfd, spec_pos)
-        else:
-            spec_normal_v = refl["normal"]
-    else:
-        hit, spec_pos, spec_normal_v, spec_mid, vis, shadows = \
-            _reflection_geometry(spec, data, probe_settings, cfg, sdf_b,
-                                 from_, spec_dir, enabled=enabled,
-                                 need_shadows=cfg.add_indirect_specular)
+    hit, spec_pos, spec_normal_v, spec_mid, vis = _reflection_geometry(
+        spec, data, probe_settings, cfg, sdf_b, from_, spec_dir,
+        enabled=enabled)
 
-    if refl is not None:
-        # best-probe pick done inside the fused kernel (weight + argmax
-        # over the 8 corner marches; in differentiable mode the pick
-        # uses the kernel's FD normal — a discrete, stop-grad selection)
-        pid = refl["best_pid"].astype(jnp.int32)
-        best_dir = refl["best_dir"]
-    else:
-        grid_pos = jnp.floor(spec_pos / spacing).astype(jnp.int32)
-        offsets = jnp.asarray(
-            [[(i >> 0) & 1, (i >> 1) & 1, (i >> 2) & 1] for i in range(8)],
-            jnp.int32)
-        offseted = jnp.clip(grid_pos[None] + offsets[:, None], 0, dims - 1)
-        probe_world = offseted.astype(jnp.float32) * spacing   # [8,N,3]
-        probe_to_spec = spec_pos[None] - probe_world
-        p_dist = jnp.maximum(jnp.linalg.norm(probe_to_spec, axis=-1),
-                             1e-6)
-        probe_to_spec = probe_to_spec / p_dist[..., None]
+    grid_pos = jnp.floor(spec_pos / spacing).astype(jnp.int32)
+    offsets = jnp.asarray(
+        [[(i >> 0) & 1, (i >> 1) & 1, (i >> 2) & 1] for i in range(8)],
+        jnp.int32)
+    offseted = jnp.clip(grid_pos[None] + offsets[:, None], 0, dims - 1)
+    probe_world = offseted.astype(jnp.float32) * spacing       # [8,N,3]
+    probe_to_spec = spec_pos[None] - probe_world
+    p_dist = jnp.maximum(length(probe_to_spec), 1e-6)
+    probe_to_spec = probe_to_spec / p_dist[..., None]
 
-        weight = dot(probe_to_spec, -spec_normal_v[None])      # [8,N]
-        weight = weight * vis
+    weight = dot(probe_to_spec, -spec_normal_v[None])          # [8,N]
+    weight = weight * vis
 
-        best = jnp.argmax(weight, axis=0)                      # [N]
-        idx = (best, jnp.arange(n_pts))
-        best_offseted = offseted[best, jnp.arange(n_pts)]      # [N,3]
-        best_dir = probe_to_spec[idx]                          # [N,3]
-        pid = probes_mod.grid_position_to_probe_id(settings, best_offseted)
+    best = jnp.argmax(weight, axis=0)                          # [N]
+    idx = (best, jnp.arange(n_pts))
+    best_offseted = offseted[best, jnp.arange(n_pts)]          # [N,3]
+    best_dir = probe_to_spec[idx]                              # [N,3]
+    pid = probes_mod.grid_position_to_probe_id(settings, best_offseted)
     rad_ray_id = probes_mod.dir_to_ray_id(best_dir)
     mip1 = probes_mod.radiance_mip1(settings, rad_atlas)
-    # best-probe lookup as an all-tiles MXU contraction + one-hot select
+    # best-probe lookup as an all-tiles contraction + one-hot select
     px_c, py_c = settings.probe_count
     vals_all = probes_mod.sample_all_tiles_bilinear(
         settings, mip1, rad_ray_id, settings.radiance_resolution // 2)
@@ -280,8 +180,7 @@ def sample_radiance_no_specular(spec, data, probe_settings, cfg, sdf_b,
             spec, data, sdf_b, spec_pos, spec_normal_v, spec_dir,
             jnp.zeros((n_pts, 3), jnp.float32), spec_metallic,
             spec_roughness, compute_specular=cfg.direct_specular,
-            enabled=enabled & hit, max_steps=cfg.max_march_steps,
-            shadows_by_slot=shadows)
+            enabled=enabled & hit, max_steps=cfg.max_march_steps)
         radiance = radiance + highlight
 
     return jnp.where(hit[..., None], radiance, 0.0)
@@ -316,7 +215,7 @@ def sample_radiance_with_specular(spec, data, probe_settings, cfg, sdf_b,
     offseted = jnp.clip(grid_pos[None] + offsets[:, None], 0, dims - 1)
     probe_world = offseted.astype(jnp.float32) * spacing
     probe_to_spec = (pos[None] - probe_world) + pos_to_spec[None]
-    p_dist = jnp.maximum(jnp.linalg.norm(probe_to_spec, axis=-1), 1e-6)
+    p_dist = jnp.maximum(length(probe_to_spec), 1e-6)
     probe_to_spec = probe_to_spec / p_dist[..., None]
 
     # visibility by penumbra march back toward the probe (k = 0.5)
@@ -358,19 +257,18 @@ def compute_indirect_specular(spec, data, probe_settings, cfg, sdf_b,
     full secondary shade (direct + irradiance-lit indirect) at the
     reflection hit; sky gradient on miss."""
     from_ = pos + normal * SURFACE_OFFSET
-    hit, spec_pos, s_normal, s_mid, vis, shadows = \
-        _reflection_geometry(spec, data, probe_settings, cfg, sdf_b, from_,
-                             spec_dir, enabled=enabled)
+    hit, spec_pos, s_normal, s_mid, vis = _reflection_geometry(
+        spec, data, probe_settings, cfg, sdf_b, from_, spec_dir,
+        enabled=enabled)
     s_albedo, s_metallic, s_roughness = material_lookup(data, s_mid)
 
     direct = direct_lighting(
         spec, data, sdf_b, spec_pos, s_normal, spec_dir, s_albedo,
         s_metallic, s_roughness, compute_specular=cfg.direct_specular,
-        enabled=enabled & hit, max_steps=cfg.max_march_steps,
-        shadows_by_slot=shadows)
+        enabled=enabled & hit, max_steps=cfg.max_march_steps)
     irradiance = probes_mod.sample_irradiance(
         probe_settings, sdf_b, irr_atlas, spec_pos, s_normal,
-        enabled=enabled & hit, max_steps=cfg.max_march_steps, vis8=vis)
+        enabled=enabled & hit, max_steps=cfg.max_march_steps, vis=vis)
     sec_spec_dir = reflect(spec_dir, s_normal)
     indirect = indirect_lighting(
         irradiance, jnp.zeros_like(spec_pos), -spec_dir, s_normal,
@@ -390,39 +288,17 @@ def pixel_color(spec: SceneSpec, data: SceneData,
     """
     from madarch_tpu.render.context import SceneCtx
     ctx = SceneCtx(spec, data)
-    sdf_b = ctx  # march entry points accept the ctx (kernel fast path)
     sdf_b_diff = ctx.sdf_b_diff
 
-    geom = None
-    if _fused_ctx(ctx, cfg) is not None:
-        # specular mode 2 folds its reflection bounce into the same
-        # kernel launch (scene resident once — render_probes.glsl does
-        # primary + reflection in ONE fragment invocation)
-        fold = cfg.indirect_specular_mode == 2 \
-            and os.environ.get("MADARCH_NO_REFL_FOLD", "") != "1"
-        geom = ctx.geometry(origins, dirs, probe_settings, cfg,
-                            want_reflection=fold)
-        t, hit = geom["t"], geom["hit"]
-        if cfg.differentiable:
-            # stop-grad march from the kernel; gradients re-enter through
-            # the IFT reattachment + autodiff normal (same structure as
-            # the XLA differentiable path)
-            t = attach_hit_gradient(sdf_b_diff, origins, dirs, t)
-            pos = origins + t[:, None] * dirs
-            normal = scene_normal(sdf_b_diff, pos)
-        else:
-            pos = origins + t[:, None] * dirs
-            normal = geom["normal"]
-    else:
-        t, hit, _ = raycast(sdf_b, origins, dirs, spec.max_dist,
-                            max_steps=cfg.max_march_steps)
-        if cfg.differentiable:
-            t = attach_hit_gradient(sdf_b_diff, origins, dirs, t)
-        pos = origins + t[:, None] * dirs
-        normal = scene_normal(sdf_b_diff, pos)
+    t, hit, _ = raycast(ctx, origins, dirs, spec.max_dist,
+                        max_steps=cfg.max_march_steps)
+    if cfg.differentiable:
+        t = attach_hit_gradient(sdf_b_diff, origins, dirs, t)
+    pos = origins + t[:, None] * dirs
+    normal = scene_normal(sdf_b_diff, pos)
 
-    lit = shade_hits(spec, data, probe_settings, cfg, sdf_b, sdf_b_diff,
-                     irr_atlas, rad_atlas, pos, normal, dirs, hit, geom=geom)
+    lit = shade_hits(spec, data, probe_settings, cfg, ctx, irr_atlas,
+                     rad_atlas, pos, normal, dirs, hit)
     sky = sky_color(dirs)
     color = jnp.where(hit[..., None], lit, sky)
 

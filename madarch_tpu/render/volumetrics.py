@@ -1,7 +1,7 @@
 """Volumetric lighting (light shafts): froxel visibility grid, scattering
 integration, depth-aware composite.
 
-TPU-native counterpart of /root/reference/madarch/glsl/
+JAX counterpart of the reference's madarch/glsl/
 compute_frustrum_visibility.glsl, accumulate_scattering.glsl, and
 volumetrics.glsl.  The froxel grid is a f32[vz, vy, vx, 3] array (the
 reference packs z-slices vertically into one 2D texture); the scattering map
@@ -113,8 +113,8 @@ def scattering_pass(spec, data, vol: VolumetricsSettings, sdf_b, visibility,
     The per-step froxel fetches are static maps (pixel -> froxel column is
     fixed by the two resolutions, z-slice is fixed per step), so the whole
     integral is gather-free: one dense froxel->scattering-grid resample +
-    n_steps masked fused multiply-adds (was a 19M-element gather loop at
-    ~3 ns/element on the TPU scalar unit).
+    n_steps masked fused multiply-adds instead of a 19M-element gather
+    loop.
     """
     import numpy as np
 

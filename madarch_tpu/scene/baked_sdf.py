@@ -10,15 +10,9 @@ startup — and sampled trilinearly; the SDF is translated by the instance's
 ``position`` field, with the grid's box SDF as a conservative far-field
 bound so sphere tracing converges from outside the grid.
 
-Why there is deliberately no Pallas kernel form for this primitive: a
-trilinear fetch needs 8 data-dependent (row, lane) reads per point per
-march step, and every dynamic-lookup primitive available inside a Mosaic
-kernel was measured dead on v5e (round 3-4): dual-axis take_along_axis
-~500 ns/op, dynamic VMEM scalar loads ~96 µs, one-hot MXU gathers
-~20 µs/sample·tile.  The exact-triangle path with Morton-chunked AABB
-culling (ops/march.py) is the fast mesh path on this hardware; the baked
-grid remains the XLA-path option where its O(1)-in-triangle-count scaling
-matters more than per-ray speed (huge meshes, physics queries).
+A trilinear fetch needs 8 data-dependent reads per point per march step;
+the grid's cost does not grow with the triangle count, which is what it is
+for (huge meshes, physics queries).
 """
 from __future__ import annotations
 

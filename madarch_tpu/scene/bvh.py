@@ -1,14 +1,15 @@
 """Generic SAH bounding-volume hierarchy + BVH-compiled scene SDF.
 
-TPU-native counterpart of the reference's generic BVH package
+JAX counterpart of the reference's generic BVH package
 (/root/reference/madarch/support/bounding_volume_hierarchies.ads:5-48:
 sweep-SAH best split over all 3 axes with pre-sorted per-axis index arrays)
 and of the bvh_test example's *BVH-as-expression* trick
 (examples/bvh_test/main.adb:60-160): the tree is compiled into a single
 nested distance computation — node = let bbd = box_sdf(aabb) in
 (bbd < 0.2 ? min(left, right) : bbd) — which is exactly a static unrolled
-``jnp.where`` tree here; XLA evaluates all branches and selects, the TPU
-equivalent of the GLSL early-out (SIMD lanes pay both sides either way).
+``jnp.where`` tree here; XLA evaluates all branches and selects, the
+batched equivalent of the GLSL early-out (SIMD lanes pay both sides either
+way).
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Light types: point and spot lights plus a registry for user types.
 
-TPU-native counterpart of /root/reference/madarch/madarch-lights.ads:6-37 and
+JAX counterpart of the reference's madarch/madarch-lights.ads:6-37 and
 the Point_Lights / Spot_Lights child packages.  A light's ``sample`` returns
 (radiance, direction-to-light, distance) for a shading point, matching the
 generated GLSL ``sample_<light>`` functions (madarch-scenes.adb:497-549).

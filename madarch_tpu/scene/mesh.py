@@ -1,12 +1,12 @@
 """Triangle meshes: OBJ loading, bounding boxes, voxelization, SDF baking.
 
-TPU-native counterpart of the reference's mesh support layer
+JAX counterpart of the reference's mesh support layer
 (/root/reference/madarch/support/meshes.ads:11-19, meshes-obj_loader.adb:22-113,
 meshes-voxels.adb:8-54, meshes-distance_maps.adb:17-301,
 bounding_boxes.ads:3-20).  Host-side data is numpy; the SDF baker is a jitted
 brute-force pairwise reduction (exact closest-triangle distance over a dense
-grid — embarrassingly parallel, which suits the TPU far better than the
-reference's sequential Danielsson sweep transform).
+grid — embarrassingly parallel, unlike the reference's sequential
+Danielsson sweep transform).
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
 
 @dataclasses.dataclass
@@ -101,8 +102,12 @@ def _triangle_dist_and_closest(v1, v2, v3, p):
     p1, p2, p3 = p - v1, p - v2, p - v3
     nor = jnp.cross(v21, v13)
 
+    def dot(a, b):
+        # full f32: these are distances, not features
+        return jnp.dot(a, b, precision=lax.Precision.HIGHEST)
+
     def edge_closest(v, q, base):
-        t = jnp.clip((q @ v) / jnp.maximum(v @ v, 1e-30), 0.0, 1.0)
+        t = jnp.clip(dot(q, v) / jnp.maximum(dot(v, v), 1e-30), 0.0, 1.0)
         c = base + t[:, None] * v
         return c, jnp.sum((c - p) ** 2, axis=-1)
 
@@ -110,12 +115,12 @@ def _triangle_dist_and_closest(v1, v2, v3, p):
     c2, d2 = edge_closest(v32, p2, v2)
     c3, d3 = edge_closest(v13, p3, v3)
 
-    inside = (jnp.sign(p1 @ jnp.cross(v21, nor))
-              + jnp.sign(p2 @ jnp.cross(v32, nor))
-              + jnp.sign(p3 @ jnp.cross(v13, nor))) < 2.0
+    inside = (jnp.sign(dot(p1, jnp.cross(v21, nor)))
+              + jnp.sign(dot(p2, jnp.cross(v32, nor)))
+              + jnp.sign(dot(p3, jnp.cross(v13, nor)))) < 2.0
 
     nn = nor / jnp.maximum(jnp.linalg.norm(nor), 1e-30)
-    plane_off = (p1 @ nn)
+    plane_off = dot(p1, nn)
     c_plane = p - plane_off[:, None] * nn
     d_plane = plane_off ** 2
 
@@ -170,8 +175,7 @@ def bake_distance_map(mesh: Mesh, dims, lo, hi, batch=8192):
 
 def morton_order(points: np.ndarray, bits: int = 10) -> np.ndarray:
     """Z-order sort keys for [N,3] points: spatially adjacent points land
-    in adjacent slots, which tightens the Pallas kernel's per-chunk
-    bounding spheres (ops/march.py chunked layout)."""
+    in adjacent slots."""
     lo = points.min(axis=0)
     extent = np.maximum(points.max(axis=0) - lo, 1e-9)
     q = ((points - lo) / extent * ((1 << bits) - 1)).astype(np.int64)
@@ -187,7 +191,9 @@ def add_mesh_to_renderer(renderer, mesh: Mesh, material_id: int,
     """Add every triangle as a Triangle primitive (obj_mesh/main.adb
     Add_Triangle + Iterate_Triangles).  ``order="morton"`` (default)
     inserts triangles in Z-order — scene order is semantically free, and
-    spatial coherence makes the march kernel's chunk bounds tight."""
+    contiguous slot ranges then hold spatially compact triangle groups, as
+    any culling bound over slot ranges needs (the dense march itself does
+    not depend on the order)."""
     from madarch_tpu.scene.primitives import Triangle
     off = np.asarray(offset, np.float32)
     tv = mesh.triangle_vertices() + off

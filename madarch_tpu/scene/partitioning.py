@@ -1,15 +1,13 @@
 """Uniform-grid space partitioning: per-cell candidate lists + grid-aware
 closest-primitive queries.
 
-Scope note: on TPU the *render-path* march acceleration is the chunked
-dense-slot evaluation with bounding-sphere chunk culling inside the fused
-Pallas kernels (ops/march.py) — per-ray candidate gathers measured 47×
-slower than dense evaluation on this hardware (render/context.py).  This
-module is the host/query-side structure: ``grid_closest`` serves physics /
+Scope note: the render-path marches evaluate every scene slot densely
+(render/context.py); they do not read these candidate lists.  This module is
+the host/query-side structure: ``grid_closest`` serves physics /
 eval_distance_to-style point queries and tests, and the builders mirror the
 reference's Update_Partitioning semantics.
 
-TPU-native counterpart of the reference's partitioning codegen
+JAX counterpart of the reference's partitioning codegen
 (/root/reference/madarch/madarch-scenes.adb:766-1187) and the three
 Update_Partitioning builders (madarch-renderers.adb:539-755):
 
@@ -90,9 +88,7 @@ def planar_prims(spec: SceneSpec, data: SceneData):
     """Per-type planar parameter split: vec3 fields become three f32[cap]
     component arrays (name_x/y/z).  Must be built OUTSIDE any vmap/march
     loop — the split is then a few materialized 1-D arrays instead of a
-    strided column slice traced per ray (which both blows memory through
-    lane padding and has tripped TPU runtime faults when fused into the
-    march gathers)."""
+    strided column slice traced per ray."""
     out = {}
     for ptype, cap in spec.prims:
         if ptype.sdf_planar is None:
@@ -115,9 +111,9 @@ def candidate_dists(spec: SceneSpec, data: SceneData, cand, p, planar=None):
     (dead/-1 entries -> max_dist); f32[K].
 
     With ``planar`` (from :func:`planar_prims`), parameter gathers are one
-    [K] fetch per scalar component: a [K, 3] vec3 gather would be padded by
-    TPU tiling from 3 to 128 lanes — a 42× memory blowup that OOM'd 800²
-    mesh marches (each march step holds [rays, K] of these under vmap).
+    [K] fetch per scalar component instead of [K, 3] vec3 row gathers, so a
+    batched query (each holding [rays, K] of these under vmap) keeps dense
+    1-D operands.
     """
     k = cand.shape[0]
     dists = jnp.full((k,), spec.max_dist, jnp.float32)

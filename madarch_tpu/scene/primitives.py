@@ -1,6 +1,6 @@
 """Primitive types: analytic signed-distance functions and normals.
 
-TPU-native counterpart of the reference's primitive layer
+JAX counterpart of the reference's primitive layer
 (/root/reference/madarch/madarch-primitives.ads:10-60 and the
 Spheres/Planes/Boxes/Triangles child packages).  Where the reference defines
 each primitive as a symbolic expression tree that is later compiled to GLSL
@@ -55,23 +55,12 @@ class PrimitiveType:
     fields: tuple  # tuple[(field_name, kind), ...]; material_id implied last
     sdf: Callable  # (params: dict, p: f32[3]) -> f32[]
     normal: Optional[Callable] = None  # (params, p) -> f32[3]; None => grad
-    # Planar form for the fused Pallas march kernels: params hold *scalars*
-    # (vec3 fields appear as name_x/name_y/name_z), px/py/pz are tile-shaped
-    # arrays.  None => the type is excluded from the kernel fast path.
+    # Planar form: params hold per-component arrays (vec3 fields appear as
+    # name_x/name_y/name_z) and px/py/pz are equally shaped arrays.  Used by
+    # the partitioning candidate queries (scene/partitioning.py), whose
+    # [K] parameter gathers stay one 1-D fetch per scalar component.
+    # None => those queries use the vector ``sdf`` under vmap.
     sdf_planar: Optional[Callable] = None  # (params, px, py, pz) -> dist
-    # Spatial extent per instance for the chunked kernel layout's bounding
-    # spheres: (batched params dict [n,...]) -> (lo f32[n,3], hi f32[n,3]).
-    # None => unbounded (planes) or unknown: no chunk culling / far-field
-    # short-circuit for this type.
-    bounds: Optional[Callable] = None
-    # Optional precomputed-constant form for the chunked kernel layout:
-    # ``derive`` maps batched params to per-slot constants (schema
-    # ``derived_fields``) consumed by ``sdf_planar_derived`` — hoists
-    # point-independent work (edge crosses, inverse dot2s) out of the
-    # per-step slot loop at the cost of more parameter rows.
-    derive: Optional[Callable] = None
-    derived_fields: Optional[tuple] = None
-    sdf_planar_derived: Optional[Callable] = None
 
     def distance(self, params, p):
         return self.sdf(params, p)
@@ -106,18 +95,12 @@ def _sphere_sdf_planar(s, px, py, pz):
     return jnp.sqrt(dx * dx + dy * dy + dz * dz) - s["radius"]
 
 
-def _sphere_bounds(params):
-    r = params["radius"][:, None]
-    return params["center"] - r, params["center"] + r
-
-
 Sphere = PrimitiveType(
     name="sphere",
     fields=(("center", VEC3), ("radius", FLOAT), ("material_id", INT)),
     sdf=_sphere_sdf,
     normal=_sphere_normal,
     sdf_planar=_sphere_sdf_planar,
-    bounds=_sphere_bounds,
 )
 
 
@@ -185,18 +168,12 @@ def _box_sdf_planar(s, px, py, pz):
     return outside + inside
 
 
-def _box_bounds(params):
-    return (params["center"] - params["side"],
-            params["center"] + params["side"])
-
-
 Box = PrimitiveType(
     name="box",
     fields=(("center", VEC3), ("side", VEC3), ("material_id", INT)),
     sdf=_box_sdf,
     normal=_box_normal,
     sdf_planar=_box_sdf_planar,
-    bounds=_box_bounds,
 )
 
 
@@ -272,87 +249,12 @@ def _triangle_sdf_planar(s, px, py, pz):
                                 1e-30))
 
 
-def _triangle_bounds(params):
-    vs = jnp.stack([params["v1"], params["v2"], params["v3"]])  # [3,n,3]
-    return vs.min(axis=0), vs.max(axis=0)
-
-
-def _triangle_derive(params):
-    """Per-triangle constants for the chunked kernel layout: the edges,
-    face normal, edge-normal crosses and inverse dot2s of the iq SDF are
-    point-independent, so the kernel packs them once instead of
-    recomputing 3 crosses + 4 divides per slot per march step."""
-    v1, v2, v3 = params["v1"], params["v2"], params["v3"]
-    v21 = v2 - v1
-    v32 = v3 - v2
-    v13 = v1 - v3
-    nor = jnp.cross(v21, v13)
-
-    def inv(e):
-        return 1.0 / jnp.maximum(jnp.sum(e * e, axis=-1), 1e-30)
-
-    return {
-        "v1": v1, "v21": v21, "v32": v32, "v13": v13, "nor": nor,
-        "n21": jnp.cross(v21, nor), "n32": jnp.cross(v32, nor),
-        "n13": jnp.cross(v13, nor),
-        "i21": inv(v21), "i32": inv(v32), "i13": inv(v13),
-        "inor": inv(nor),
-        "material_id": params["material_id"],
-    }
-
-
-def _triangle_sdf_planar_derived(s, px, py, pz):
-    """_triangle_sdf_planar on the _triangle_derive constants; bitwise the
-    same arithmetic on the per-point terms (p2 = p1 − v21, p3 = p1 + v13
-    replace the direct vertex subtractions)."""
-    def v(name):
-        return (s[name + "_x"], s[name + "_y"], s[name + "_z"])
-
-    def dotp(a, b):
-        return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
-
-    v1, v21, v32, v13 = v("v1"), v("v21"), v("v32"), v("v13")
-    nor, n21, n32, n13 = v("nor"), v("n21"), v("n32"), v("n13")
-    p1 = (px - v1[0], py - v1[1], pz - v1[2])
-    p2 = (p1[0] - v21[0], p1[1] - v21[1], p1[2] - v21[2])
-    p3 = (p1[0] + v13[0], p1[1] + v13[1], p1[2] + v13[2])
-
-    inside = (jnp.sign(dotp(n21, p1)) + jnp.sign(dotp(n32, p2))
-              + jnp.sign(dotp(n13, p3))) < 2.0
-
-    def edge(vv, q, iv):
-        t = jnp.clip(dotp(vv, q) * iv, 0.0, 1.0)
-        ex = vv[0] * t - q[0]
-        ey = vv[1] * t - q[1]
-        ez = vv[2] * t - q[2]
-        return ex * ex + ey * ey + ez * ez
-
-    edge_d2 = jnp.minimum(
-        jnp.minimum(edge(v21, p1, s["i21"]), edge(v32, p2, s["i32"])),
-        edge(v13, p3, s["i13"]))
-    plane_d2 = dotp(nor, p1) ** 2 * s["inor"]
-    return jnp.sqrt(jnp.maximum(jnp.where(inside, edge_d2, plane_d2),
-                                1e-30))
-
-
-_TRIANGLE_DERIVED_FIELDS = (
-    ("v1", VEC3), ("v21", VEC3), ("v32", VEC3), ("v13", VEC3),
-    ("nor", VEC3), ("n21", VEC3), ("n32", VEC3), ("n13", VEC3),
-    ("i21", FLOAT), ("i32", FLOAT), ("i13", FLOAT), ("inor", FLOAT),
-    ("material_id", INT),
-)
-
-
 Triangle = PrimitiveType(
     name="triangle",
     fields=(("v1", VEC3), ("v2", VEC3), ("v3", VEC3), ("material_id", INT)),
     sdf=_triangle_sdf,
     normal=None,  # jax.grad of the SDF, normalized
     sdf_planar=_triangle_sdf_planar,
-    bounds=_triangle_bounds,
-    derive=_triangle_derive,
-    derived_fields=_TRIANGLE_DERIVED_FIELDS,
-    sdf_planar_derived=_triangle_sdf_planar_derived,
 )
 
 

@@ -1,6 +1,6 @@
 """Scene representation: static spec + struct-of-arrays device data.
 
-TPU-native counterpart of the reference's scene compiler
+JAX counterpart of the reference's scene compiler
 (/root/reference/madarch/madarch-scenes.ads:47-76).  Where the reference emits
 specialized GLSL (structs, dist functions, dispatch loops) and an std140
 memory layout at startup, here:

@@ -1,6 +1,6 @@
 // Native host-runtime components of madarch_tpu.
 //
-// The reference's host layer is compiled Ada; the TPU rebuild keeps its
+// The reference's host layer is compiled Ada; the JAX rebuild keeps its
 // hot host-side paths native too: OBJ parsing, SAH BVH construction
 // (/root/reference/madarch/support/bounding_volume_hierarchies.adb:57-211)
 // and the Danielsson-style vector distance transform

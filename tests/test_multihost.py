@@ -1,9 +1,9 @@
 """Multi-host execution: a REAL 2-process jax.distributed CPU cluster.
 
-The SPMD design (parallel/spmd.py) targets multi-host TPU pods where
+The SPMD design (parallel/spmd.py) scales to several hosts, where
 ``jax.distributed.initialize`` builds the global device mesh and XLA routes
-collectives over ICI/DCN.  No pod is available in CI, but the *code path*
-is executable on CPU: two subprocesses form a cluster (coordinator on
+collectives between hosts.  No cluster is available in CI, but the *code
+path* is executable on CPU: two subprocesses form a cluster (coordinator on
 localhost), each contributes 2 virtual CPU devices, and both run one
 sharded differentiable-render training step over the global 4-device mesh.
 This exercises init_distributed's explicit-cluster branch, global-mesh

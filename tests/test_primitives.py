@@ -111,3 +111,33 @@ def test_jit_matches_eager():
     eager = jax.vmap(f)(pts)
     jitted = jax.jit(jax.vmap(f))(pts)
     np.testing.assert_allclose(eager, jitted, rtol=1e-6, atol=1e-6)
+
+
+def test_planar_sdf_matches_vector_sdf():
+    """Planar forms (used by the partitioning candidate queries) == vector
+    forms used everywhere else."""
+    rng = np.random.RandomState(7)
+    pts = jnp.asarray(rng.randn(32, 3).astype(np.float32) * 3)
+    cases = [
+        (P.Sphere, {"center": jnp.asarray([0.5, -1.0, 2.0]),
+                    "radius": jnp.float32(1.3)}),
+        (P.Plane, {"normal": jnp.asarray([0.0, 1.0, 0.0]),
+                   "offset": jnp.float32(2.0)}),
+        (P.Box, {"center": jnp.asarray([1.0, 0.0, -1.0]),
+                 "side": jnp.asarray([0.5, 1.5, 2.0])}),
+        (P.Triangle, {"v1": jnp.asarray([0.0, 0.0, 0.0]),
+                      "v2": jnp.asarray([2.0, 0.0, 0.0]),
+                      "v3": jnp.asarray([0.0, 2.0, 0.0])}),
+    ]
+    for ptype, params in cases:
+        ref = jax.vmap(lambda p: ptype.sdf(params, p))(pts)
+        scal = {}
+        for k, val in params.items():
+            if val.ndim == 1:
+                for i, ax in enumerate("xyz"):
+                    scal[f"{k}_{ax}"] = val[i]
+            else:
+                scal[k] = val
+        planar = ptype.sdf_planar(scal, pts[:, 0], pts[:, 1], pts[:, 2])
+        np.testing.assert_allclose(planar, ref, rtol=1e-5, atol=1e-5,
+                                   err_msg=ptype.name)

@@ -191,3 +191,25 @@ def test_collective_structure():
 def test_init_distributed_is_guarded_noop():
     # no coordinator env in tests: must not raise, must report False
     assert spmd.init_distributed() is False
+
+
+def test_train_step_keeps_parameters_finite():
+    """A probe inside geometry (here (4, 0, 4), inside the GI box) shades
+    from a hit at t = 0, exactly on a probe position: the probe-distance
+    gradient there must be 0, not 0/0, or one step turns every primitive
+    parameter into NaN."""
+    w = h = 16
+    r = build_renderer(w, h)
+    mesh = spmd.make_mesh(1)
+    data = spmd.replicate(mesh, r.scene_data)
+    state = spmd.replicate(mesh, r.state)
+    step = spmd.make_train_step(r.spec, PROBES, NO_VOLUMETRICS, w, h, mesh,
+                                screen_cfg=CFG)
+    target = jnp.zeros((h, w, 3), jnp.float32)
+    losses = []
+    for _ in range(2):
+        loss, data, state = step(data, r.camera, state, target)
+        losses.append(float(loss))
+    floats, _ = spmd.split_float_leaves(data)
+    assert all(bool(jnp.isfinite(x).all()) for x in floats)
+    assert np.isfinite(losses).all() and losses[0] != losses[1]

@@ -16,12 +16,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
-
 import jax  # noqa: E402
-
-jax.config.update("jax_platforms", "cpu")
-
 import numpy as np  # noqa: E402
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.dirname(
@@ -31,41 +26,46 @@ SIZE = 128
 FRAMES = {"global_illumination": 4, "light_shafts": 2}
 
 
-def render_configs():
+SCENES = ("simple_scene", "global_illumination", "light_shafts", "obj_mesh",
+          "bvh_test", "ball_game")
+
+
+def render_config(name):
+    """The 128² golden render of one example config, f32[H, W, 3]."""
     from madarch_tpu.examples import scenes
 
-    builders = {
-        "simple_scene": scenes.simple_scene,
-        "global_illumination": scenes.global_illumination,
-        "light_shafts": scenes.light_shafts,
-        "obj_mesh": scenes.obj_mesh,
-        "bvh_test": scenes.bvh_test,
-    }
-    out = {}
-    for name, builder in builders.items():
-        r = builder(width=SIZE, height=SIZE)
-        img = np.asarray(r.converge(frames=FRAMES.get(name, 2)))
-        print(f"{name:22s} mean={img.mean():.5f} std={img.std():.5f}")
-        out[name] = img.astype(np.float32)
+    if name == "ball_game":
+        # two physics steps then a frame (exercises eval_distance_to +
+        # dynamic counts)
+        r, step_physics, throw_ball = scenes.ball_game(width=SIZE,
+                                                       height=SIZE)
+        throw_ball((2.0, 2.0, 0.0), (2.0, 2.0, 4.0))
+        for _ in range(2):
+            step_physics()
+    else:
+        r = getattr(scenes, name)(width=SIZE, height=SIZE)
+    img = np.asarray(r.converge(frames=FRAMES.get(name, 2)))
+    print(f"{name:22s} mean={img.mean():.5f} std={img.std():.5f}")
+    return img.astype(np.float32)
 
-    # ball_game: two physics steps then a frame (exercises eval_distance_to
-    # + dynamic counts)
-    r, step_physics, throw_ball = scenes.ball_game(width=SIZE, height=SIZE)
-    throw_ball((2.0, 2.0, 0.0), (2.0, 2.0, 4.0))
-    for _ in range(2):
-        step_physics()
-    img = np.asarray(r.converge(frames=2))
-    print(f"{'ball_game':22s} mean={img.mean():.5f} std={img.std():.5f}")
-    out["ball_game"] = img.astype(np.float32)
-    return out
+
+def render_configs():
+    return {name: render_config(name) for name in SCENES}
 
 
 def gradient_goldens():
     """dL/d(named param) for the differentiability scene
     (tests/test_differentiability.py's fixture, at its exact configs)."""
-    sys.path.insert(0, os.path.join(os.path.dirname(GOLDEN_DIR)))
+    import importlib.util
+
     import jax.numpy as jnp
-    from tests import test_differentiability as td
+
+    # by file path: another installed package may also be named "tests"
+    spec = importlib.util.spec_from_file_location(
+        "test_differentiability",
+        os.path.join(os.path.dirname(GOLDEN_DIR), "test_differentiability.py"))
+    td = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(td)
 
     grads = {}
 
@@ -97,6 +97,12 @@ def gradient_goldens():
 
 
 def main():
+    from madarch_tpu.utils.runtime import enable_compile_cache
+
+    os.environ.setdefault("XLA_FLAGS",
+                          "--xla_force_host_platform_device_count=8")
+    jax.config.update("jax_platforms", "cpu")
+    enable_compile_cache()
     os.makedirs(GOLDEN_DIR, exist_ok=True)
     images = render_configs()
     np.savez_compressed(os.path.join(GOLDEN_DIR, "images.npz"), **images)

@@ -1,7 +1,8 @@
-"""Ad-hoc TPU perf probe: time one bench config's frame without the full
+"""Ad-hoc GPU perf probe: time one bench config's frame without the full
 bench.py sweep.  Usage: python tools/perf_probe.py [config] [size] [frames]
 
-Prints frame ms + rays/s to stderr and a one-line JSON to stdout.
+Prints frame ms + rays/s to stderr and a one-line JSON to stdout (with
+PROBE_PASSES=1 also bench.per_pass_breakdown).  Exits without a GPU.
 """
 import json
 import os
@@ -9,12 +10,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-
-def _sync(x):
-    import jax
-    jax.block_until_ready(x)
-    float(x.sum())
 
 
 def main():
@@ -25,8 +20,13 @@ def main():
     from madarch_tpu.examples import scenes
     from madarch_tpu.core.config import ProbeSettings
     from madarch_tpu.utils.profiling import rays_per_frame
+    from madarch_tpu.utils.runtime import (card_info, enable_compile_cache,
+                                           require_gpu)
 
-    print(f"backend: {jax.default_backend()}", file=sys.stderr)
+    require_gpu()
+    enable_compile_cache()
+    print(f"device: {jax.devices()[0].device_kind}; card: {card_info()}",
+          file=sys.stderr)
     kwargs = {}
     if name == "obj_mesh":
         kwargs["probes"] = ProbeSettings(
@@ -36,12 +36,12 @@ def main():
     r = getattr(scenes, name)(width=size, height=size, **kwargs)
     t0 = time.time()
     img = r.converge(frames=1)
-    _sync(img)
+    jax.block_until_ready(img)
     compile_s = time.time() - t0
     t0 = time.time()
     for _ in range(frames):
         img = r.render()
-    _sync(img)
+    jax.block_until_ready(img)
     dt = (time.time() - t0) / frames
     rays = rays_per_frame(r.width, r.height, r.probes, 1, r.screen_cfg,
                           r.volumetrics)

@@ -1,7 +1,9 @@
-"""Bisect the training-step wall time (bench: 378 ms at 256² GI).
+"""Bisect the training-step wall time at 256² GI on the GPU.
 
 Times: (a) jitted forward frame on the differentiable configs (no grad),
-(b) value_and_grad over materials only, (c) the full train step.
+(b) value_and_grad over materials only, (c) the full train step.  With
+BISECT2=1: grad over all float leaves without the mesh.  Exits without a
+GPU.  Usage: python tools/train_probe.py
 """
 import os
 import sys
@@ -14,11 +16,10 @@ def timeit(label, fn, *args, iters=3):
     import jax
     out = fn(*args)
     jax.block_until_ready(out)
-    float(jax.tree.leaves(out)[0].sum())
     t0 = time.time()
     for _ in range(iters):
         out = fn(*args)
-    float(jax.tree.leaves(out)[0].sum())
+    jax.block_until_ready(out)
     dt = (time.time() - t0) / iters * 1e3
     print(f"{label:42s} {dt:8.1f} ms", file=sys.stderr)
     return out
@@ -46,7 +47,7 @@ def main():
         screen_cfg=scfg, probe_cfg=pcfg))
     timeit("fwd diff-cfg (no grad)", fwd, r.scene_data, r.camera, r.state)
 
-    # (a2) forward with the non-differentiable fused path, for scale
+    # (a2) forward on the plain (non-differentiable) configs, for scale
     fwd2 = jax.jit(lambda d, c, s: render_frame_impl(
         r.spec, r.probes, r.volumetrics, size, size, d, c, s))
     timeit("fwd fused-cfg", fwd2, r.scene_data, r.camera, r.state)
@@ -75,11 +76,11 @@ def main():
     step = spmd.make_train_step(r.spec, r.probes, r.volumetrics, size,
                                 size, mesh, screen_cfg=scfg)
     l, data, state = step(data, r.camera, state, target)
-    float(l)
+    jax.block_until_ready(l)
     t0 = time.time()
     for _ in range(3):
         l, data, state = step(data, r.camera, state, target)
-    float(l)
+    jax.block_until_ready(l)
     print(f"{'full train step':42s} {(time.time() - t0) / 3 * 1e3:8.1f} ms",
           file=sys.stderr)
 
@@ -120,4 +121,8 @@ def bisect2():
 
 
 if __name__ == "__main__":
+    from madarch_tpu.utils.runtime import enable_compile_cache, require_gpu
+
+    require_gpu()
+    enable_compile_cache()
     bisect2() if os.environ.get("BISECT2") else main()
